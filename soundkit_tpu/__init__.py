@@ -1,12 +1,12 @@
-"""soundkit-tpu: a TPU-native batched audio decode/encode + DSP framework.
+"""soundkit-tpu: a batched multi-stream audio decode/encode + DSP framework.
 
 A from-scratch rebuild of the capabilities of wavey-ai/soundkit (a Rust
-streaming audio codec workspace) designed TPU-first:
+streaming audio codec workspace) designed for an accelerator:
 
 - Host layer (Python + C++): byte ingestion, format detection, container
   demux, bitstream/entropy parsing. Produces fixed-shape coefficient
   tensors + per-stream state.
-- Device layer (JAX/XLA/Pallas): batched kernels over ``[streams, ...]``
+- Device layer (JAX/XLA): batched kernels over ``[streams, ...]``
   for companding, ADPCM scans, IMDCT/DCT-IV, polyphase synthesis, LPC
   reconstruction, windowed-sinc resampling and sample-format conversion.
 - Pipeline layer: ``DecodePipeline``-style streaming API with automatic

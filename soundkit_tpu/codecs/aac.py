@@ -4,7 +4,7 @@ API equivalent of the reference's FDK-backed ``AacDecoder``
 (soundkit-aac/src/lib.rs:103-259, ADTS transport).  The ADTS happy
 path is OWNED end to end: the spec parser + numpy synthesis from the
 AAC-LC family (codecs/aac_lc.py, ops/aac_dsp.py — the same math the
-batched TPU model runs), ~6x realtime per stream on the host, no jit
+batched device model runs), ~6x realtime per stream on the host, no jit
 warm-up inside the pipeline's responsiveness contract.
 
 libavcodec remains the escape hatch for the shapes the owned LC path

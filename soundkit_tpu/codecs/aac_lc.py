@@ -8,8 +8,9 @@ section/scalefactor/pulse/TNS parsing, Huffman spectral decode
 the 1024-sample LC constraint with explicit SBR/HE rejection
 (decoder.rs:134-145).
 
-Architecture split (TPU-first): this module is the HOST layer — ADTS
-framing, bitstream parse, Huffman decode — producing fixed-shape
+Architecture split (host parse, device numerics): this module is the
+HOST layer — ADTS framing, bitstream parse, Huffman decode — producing
+fixed-shape
 integer coefficient arrays + per-band metadata.  The numeric decode
 (dequant, stereo tools, TNS, IMDCT, windowing, overlap-add) lives in
 ``soundkit_tpu.ops.aac_dsp`` and runs over ``[streams, ...]`` batches

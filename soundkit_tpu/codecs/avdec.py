@@ -11,7 +11,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from soundkit_tpu.native.loader import load
+from soundkit_tpu.native.loader import load_av
 
 
 class AvDecodeError(ValueError):
@@ -27,7 +27,7 @@ class AvDecoder:
         extradata: Optional[bytes] = None,
         use_parser: bool = False,
     ):
-        self._lib = load()
+        self._lib = load_av()
         ed = bytes(extradata) if extradata else None
         self._h = self._lib.skt_av_open(
             codec_name.encode(),

@@ -24,7 +24,7 @@ from soundkit_tpu.core import audio_bytes as ab
 from soundkit_tpu.core.audio_types import AudioData, EncodingFlag, Endianness
 from soundkit_tpu.core.frame_header import FrameHeader
 from soundkit_tpu.core.wav import WavStreamProcessor
-from soundkit_tpu.native.loader import load
+from soundkit_tpu.native.loader import load_av
 
 ADTS_SAMPLE_RATES = (96000, 88200, 64000, 48000, 44100, 32000, 24000, 22050,
                      16000, 12000, 11025, 8000, 7350)
@@ -38,7 +38,7 @@ class AvEncoder:
     """Generic libavcodec encoder over interleaved f32 input."""
 
     def __init__(self, codec_name: str, sample_rate: int, channels: int, bit_rate: int = 0):
-        self._lib = load()
+        self._lib = load_av()
         fs = ctypes.c_int()
         self._h = self._lib.skt_av_enc_open(
             codec_name.encode(), sample_rate, channels, bit_rate, fs

@@ -6,8 +6,8 @@ companding with ``G711Law``, streaming ``G711Encoder``/``G711Decoder``
 ``decode_sample`` scalar helpers (:22-34).
 
 The inner loop is ``soundkit_tpu.ops.companding`` — branch-free vector
-arithmetic that runs on host (numpy) for the streaming API and on TPU
-(jax) for the batched path (``G711BatchDecoder``).
+arithmetic that runs on host (numpy) for the streaming API and on the
+accelerator (jax) for the batched path (``G711BatchDecoder``).
 """
 from __future__ import annotations
 

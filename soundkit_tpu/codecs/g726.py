@@ -6,9 +6,9 @@ API equivalent of ``soundkit-g726/src/lib.rs``: ``G726Rate``
 group-granular buffering (:556-912).
 
 The predictor core is ``soundkit_tpu.ops.adpcm`` — a batched scan that
-runs identically on CPU (host streaming path, B=1) and TPU (the
-1024-stream batched path).  Code packing/unpacking is vectorized
-numpy bit manipulation on the host.
+runs identically on CPU (host streaming path, B=1) and on the
+accelerator (the 1024-stream batched path).  Code packing/unpacking
+is vectorized numpy bit manipulation on the host.
 """
 from __future__ import annotations
 

@@ -16,7 +16,7 @@ allocation trim (energy-weighted spectral slope,
 frame's spectral peaks (``dynalloc_analysis``) — together worth
 ~9 dB mean premix SNR over the fixed trim-5/no-boost round-3
 encoder, putting the owned path ~4 dB ABOVE the libopus shim at the
-same measured kbps (benchmarks/PREMIX_BENCH.json).  Spread NORMAL,
+same measured kbps (benchmarks/premix_bench.py).  Spread NORMAL,
 no comb postfilter, dual-stereo off; CBR packets.  The encoder
 reconstructs the decoded spectrum as it goes (libopus-style
 resynthesis) so fold sources and energy predictors stay in lockstep

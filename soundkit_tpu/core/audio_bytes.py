@@ -19,7 +19,7 @@ reference's exact arithmetic, including its deliberate asymmetries:
 
 These run on the host because they sit at the bytes<->tensor boundary;
 the same math exists as jittable device ops in
-``soundkit_tpu.ops.convert`` for data already resident on TPU.
+``soundkit_tpu.ops.convert`` for data already resident on the device.
 """
 from __future__ import annotations
 

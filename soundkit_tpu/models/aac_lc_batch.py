@@ -4,8 +4,9 @@ Replaces the reference's thread-per-pipeline design (SURVEY.md §2.5)
 with stream-batch data parallelism: N concurrent ADTS streams are
 host-parsed into fixed-shape frame batches and decoded by ONE jitted
 device step (``ops.aac_batch.aac_decode_frame_device``) carrying
-per-stream overlap-add state.  Shard dim 0 over a ``streams`` mesh for
-multi-chip.
+per-stream overlap-add state.  The model runs on one device; the
+``streams`` mesh (parallel/mesh.py) is exercised only by step-level
+tests.
 """
 from __future__ import annotations
 
@@ -32,11 +33,13 @@ def _aac_steps():
 class BatchedAacLcDecoder:
     """Decode N parallel ADTS streams in lockstep frame batches.
 
-    Uses the C++ host parser (codecs.aac_lc_native) when the native
-    library is available; falls back to the Python syntax layer.
+    Parses with the C++ host parser (codecs.aac_lc_native); a native
+    library that fails to build or load raises.  ``use_native=False``
+    selects the Python syntax layer and the full wire (tests only).
+    ``wire_counts`` counts the batches each wire generation carried.
     """
 
-    def __init__(self, num_streams: int, channels: int = 2, mesh=None,
+    def __init__(self, num_streams: int, channels: int = 2,
                  use_native: bool = True):
         self.B = num_streams
         self.C = channels
@@ -45,22 +48,20 @@ class BatchedAacLcDecoder:
         saved, prev_shape = ab.init_state(num_streams, channels)
         self._saved = saved
         self._prev_shape = prev_shape
-        self._mesh = mesh
         # process-wide jit wrappers: per-instance jax.jit objects made
         # every fleet/model construction re-trace (and re-compile) the
         # big v4 entropy program on each serving pass
         (self._step, self._step_packed, self._step_v3,
          self._step_v4) = _aac_steps()
         self._native = {}  # sr_index -> NativeAacParser (mixed-rate groups)
+        self._native_cls = None
         if use_native:
-            try:
-                from soundkit_tpu.codecs.aac_lc_native import NativeAacParser
+            from soundkit_tpu.codecs.aac_lc_native import NativeAacParser
+            from soundkit_tpu.native import loader
 
-                self._native_cls = NativeAacParser
-            except Exception:
-                self._native_cls = None
-        else:
-            self._native_cls = None
+            loader.load()
+            self._native_cls = NativeAacParser
+        self.wire_counts = dict.fromkeys(("v4", "v3", "compact", "full"), 0)
 
     def push(self, stream_idx: int, data: bytes) -> None:
         self._queues[stream_idx].extend(self._streams[stream_idx].push(data))
@@ -132,6 +133,7 @@ class BatchedAacLcDecoder:
                     jnp.asarray(buf4), self._prev_shape, self._saved, max_steps
                 )
                 outs.append(pcm)
+                self.wire_counts["v4"] += 1
                 continue
             buf3 = self._try_v3(aus)
             if buf3 is not None:
@@ -139,13 +141,16 @@ class BatchedAacLcDecoder:
                     buf3, self._prev_shape, self._saved
                 )
                 outs.append(pcm)
+                self.wire_counts["v3"] += 1
                 continue
             buf = self._try_packed(aus)
             if buf is not None:
                 pcm, self._saved, self._prev_shape = self._step_packed(
                     jnp.asarray(buf), self._prev_shape, self._saved
                 )
+                self.wire_counts["compact"] += 1
             else:
+                self.wire_counts["full"] += 1
                 fb = self._frame_batch_full(aus)
                 # the native parser emits C=2 wire arrays; slice to the
                 # model's channel count so the carried state shapes

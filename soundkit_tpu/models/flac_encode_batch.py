@@ -10,7 +10,7 @@ fully standard .flac stream (STREAMINFO + MD5), bit-exact through the
 framework's own decoder and the libavcodec oracle.
 
 No reference analog exists (frame_codec.rs:42-278 encodes one stream
-at a time on one core); this is the TPU-native shape of the same
+at a time on one core); this is the device-batched shape of the same
 capability: lanes are data-parallel, the analysis is a pure map with
 no sequential scan, so it shards over the stream-batch mesh axis like
 every other batched model.
@@ -49,13 +49,23 @@ class _Lane:
 
 
 class BatchedFlacEncoder:
-    """B-lane lockstep FLAC encoder (16/24-bit, mono/stereo)."""
+    """B-lane lockstep FLAC encoder (16/24-bit, mono/stereo).
+
+    Frames are packed by the native bit-packer; a native library that
+    fails to build or load raises.  ``use_native=False`` selects the
+    per-frame Python writer (tests only)."""
 
     def __init__(self, n_lanes: int, sample_rate: int, channels: int,
-                 bits_per_sample: int = 16, block_size: int = 4096):
+                 bits_per_sample: int = 16, block_size: int = 4096,
+                 use_native: bool = True):
         if channels not in (1, 2):
             raise ValueError("batched encoder: 1 or 2 channels")
         self.B = n_lanes
+        self._lib = None
+        if use_native:
+            from soundkit_tpu.native.loader import load
+
+            self._lib = load()
         self.channels = channels
         self.bits = bits_per_sample
         self.block_size = block_size
@@ -65,17 +75,6 @@ class BatchedFlacEncoder:
             for _ in range(n_lanes)
         ]
         self._lanes = [_Lane(channels, bits_per_sample) for _ in range(n_lanes)]
-
-    @staticmethod
-    def _native_lib():
-        """Host-library handle or None (shared gate for the packer and
-        the fetch_res decision)."""
-        try:
-            from soundkit_tpu.native.loader import load
-
-            return load()
-        except Exception:
-            return None
 
     def push(self, lane: int, samples: np.ndarray) -> None:
         """[C, n] (or [n] for mono) ints at the declared bit depth."""
@@ -161,7 +160,7 @@ class BatchedFlacEncoder:
         if N is None:
             N = self.block_size
         L = 1 << (len(jobs) - 1).bit_length()
-        lib = self._native_lib()
+        lib = self._lib
         dt = np.int16 if (lib is not None and self.bits <= 16) else np.int32
         x = np.zeros((L, 2, N), dt)
         if spans is not None:
@@ -214,7 +213,7 @@ class BatchedFlacEncoder:
             c = counts.get(i, self._enc[i]._frame_no)
             fno[j] = c
             counts[i] = c + 1
-        lib = self._native_lib()
+        lib = self._lib
         if lib is None:
             return [
                 self._write_from_plan(

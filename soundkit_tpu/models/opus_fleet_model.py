@@ -169,16 +169,8 @@ class BatchedOggOpusDecoder:
         self.C = channels
         self._celt = BatchedCeltDecoder(num_streams, channels,
                                         wire=celt_wire)
-        try:
-            self._silk: Optional[BatchedSilkDeviceDecoder] = \
-                BatchedSilkDeviceDecoder(num_streams, channels)
-        except Exception:
-            self._silk = None  # no native lib: voice lanes reroute
-        try:
-            self._hyb: Optional[BatchedHybridDecoder] = \
-                BatchedHybridDecoder(num_streams, channels)
-        except Exception:
-            self._hyb = None
+        self._silk = BatchedSilkDeviceDecoder(num_streams, channels)
+        self._hyb = BatchedHybridDecoder(num_streams, channels)
         self._kind: List[Optional[str]] = [None] * num_streams
         self._demux: List[OggOpusDemuxer] = [
             OggOpusDemuxer() for _ in range(num_streams)
@@ -197,10 +189,8 @@ class BatchedOggOpusDecoder:
 
     def reset_lane(self, b: int) -> None:
         self._celt.reset_lane(b)
-        if self._silk is not None:
-            self._silk.reset_lane(b)
-        if self._hyb is not None:
-            self._hyb.reset_lane(b)
+        self._silk.reset_lane(b)
+        self._hyb.reset_lane(b)
         self._kind[b] = None
         self._demux[b] = OggOpusDemuxer()
         self._queued[b] = 0
@@ -247,22 +237,15 @@ class BatchedOggOpusDecoder:
             self._celt.configure_lane(
                 b, dm.head.pre_skip, dm.head.output_gain
             )
-            if self._silk is not None:
-                self._silk.configure_lane(
-                    b, dm.head.pre_skip, dm.head.output_gain
-                )
+            self._silk.configure_lane(
+                b, dm.head.pre_skip, dm.head.output_gain
+            )
         for i, pkt in enumerate(pkts):
             kind, toc, frame = _classify(pkt, self.C)
             if kind is None:
                 raise self._reroute(
                     b, "non-20ms/multiframe packet", pkts[i:])
             if self._kind[b] is None:
-                if kind == "silk" and self._silk is None:
-                    raise self._reroute(
-                        b, "no native silk batch", pkts[i:])
-                if kind == "hybrid" and self._hyb is None:
-                    raise self._reroute(
-                        b, "no native hybrid batch", pkts[i:])
                 self._kind[b] = kind
             if kind != self._kind[b]:
                 raise self._reroute(b, "mid-stream mode switch", pkts[i:])
@@ -311,14 +294,8 @@ class BatchedOggOpusDecoder:
         scatters, no host staging."""
         # dispatch every engine's device rounds (async) before any
         # combine/fetch work
-        parts = [self._celt.decode_ready(max_packets=n,
-                                         device_out=device_out)]
-        if self._silk is not None:
-            parts.append(self._silk.decode_ready(
-                max_packets=n, device_out=device_out))
-        if self._hyb is not None:
-            parts.append(self._hyb.decode_ready(
-                max_packets=n, device_out=device_out))
+        parts = [engine.decode_ready(max_packets=n, device_out=device_out)
+                 for engine in (self._celt, self._silk, self._hyb)]
         R = max(lens.shape[0] for _, lens in parts)
         if R == 0:
             return parts[0]

@@ -1,13 +1,20 @@
-"""ctypes loader for the native host library.
+"""ctypes loaders for the native host libraries.
 
-Builds ``libsoundkit_host.so`` lazily with ``make`` on first import if
-missing or stale (any ``src/*.cpp`` newer than the .so).  The native
-layer hosts the entropy-coded bitstream decoders (FLAC Rice, MP3/AAC
-Huffman) that are hostile to TPU execution (SURVEY.md §7 hard parts).
+``load()`` returns ``libsoundkit_host.so``: every owned parser and
+packer (FLAC, MP3/AAC/Vorbis/Opus walks, GSM, ALAC), built with g++
+alone.  ``load_av()`` returns ``libsoundkit_av.so``: the libavcodec
+shims behind the oracle decoders (``codecs/avdec.py``) and the avcodec
+encoders (``codecs/encoders.AvEncoder``).  Only those users call it;
+the batched serving path never needs libav.
+
+Both build lazily with ``make`` on first use when missing or stale
+(any of their sources or the Makefile newer than the .so).  A file
+lock serialises the build across processes.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import os
 import subprocess
@@ -17,6 +24,8 @@ import numpy as np
 
 NATIVE_DIR = Path(__file__).resolve().parent
 LIB_PATH = NATIVE_DIR / "libsoundkit_host.so"
+AV_LIB_PATH = NATIVE_DIR / "libsoundkit_av.so"
+AV_SOURCES = ("avshim.cpp", "avshim_enc.cpp")
 # PGO training loads the -fprofile-generate instrumented build
 # directly (tools/pgo_train_walks.py); no rebuild recursion
 _OVERRIDE = os.environ.get("SKT_LIB_OVERRIDE")
@@ -28,25 +37,44 @@ class NativeBuildError(RuntimeError):
     pass
 
 
-def _needs_build() -> bool:
-    if not LIB_PATH.exists():
+class AvUnavailable(NativeBuildError):
+    """libsoundkit_av.so cannot be built or loaded: libavcodec and
+    libavutil (with their headers) are missing on this machine."""
+
+
+def _sources(av: bool):
+    return [
+        src for src in (NATIVE_DIR / "src").glob("*.cpp")
+        if (src.name in AV_SOURCES) == av
+    ] + [NATIVE_DIR / "Makefile"]
+
+
+def _needs_build(path: Path, av: bool) -> bool:
+    if not path.exists():
         return True
-    lib_mtime = LIB_PATH.stat().st_mtime
-    return any(
-        src.stat().st_mtime > lib_mtime for src in (NATIVE_DIR / "src").glob("*.cpp")
-    )
+    lib_mtime = path.stat().st_mtime
+    return any(src.stat().st_mtime > lib_mtime for src in _sources(av))
+
+
+def _build(path: Path, av: bool) -> None:
+    with open(NATIVE_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not _needs_build(path, av):
+            return  # another process built it while we waited
+        proc = subprocess.run(
+            ["make", "-C", str(NATIVE_DIR), path.name],
+            capture_output=True, text=True,
+        )
+    if proc.returncode != 0:
+        err = AvUnavailable if av else NativeBuildError
+        raise err(f"native build of {path.name} failed:\n"
+                  f"{proc.stdout}\n{proc.stderr}")
 
 
 @functools.lru_cache(maxsize=1)
 def load() -> ctypes.CDLL:
-    if not _OVERRIDE and _needs_build():
-        proc = subprocess.run(
-            ["make", "-C", str(NATIVE_DIR)], capture_output=True, text=True
-        )
-        if proc.returncode != 0:
-            raise NativeBuildError(
-                f"native build failed:\n{proc.stdout}\n{proc.stderr}"
-            )
+    if not _OVERRIDE and _needs_build(LIB_PATH, av=False):
+        _build(LIB_PATH, av=False)
     lib = ctypes.CDLL(str(LIB_PATH))
 
     lib.skt_flac_new.restype = ctypes.c_void_p
@@ -112,7 +140,28 @@ def load() -> ctypes.CDLL:
     ]
     lib.skt_flac_export_rounds.restype = ctypes.c_long
 
-    # avshim
+    _bind_flac_pack(lib)
+    _bind_aac(lib)
+    _bind_aac_batch(lib)
+    _bind_aac_compact(lib)
+    _bind_aac_compact_ptrs(lib)
+    _bind_aac_v3(lib)
+    _bind_mp3(lib)
+    _bind_gsm(lib)
+    _bind_alac(lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load_av() -> ctypes.CDLL:
+    """The libavcodec shim library; raises :class:`AvUnavailable`
+    where libav is missing."""
+    if _needs_build(AV_LIB_PATH, av=True):
+        _build(AV_LIB_PATH, av=True)
+    try:
+        lib = ctypes.CDLL(str(AV_LIB_PATH))
+    except OSError as e:
+        raise AvUnavailable(f"cannot load {AV_LIB_PATH.name}: {e}") from e
     lib.skt_av_open.restype = ctypes.c_void_p
     lib.skt_av_open.argtypes = [
         ctypes.c_char_p,
@@ -135,16 +184,7 @@ def load() -> ctypes.CDLL:
     lib.skt_av_pull_f32.restype = ctypes.c_long
     lib.skt_av_err.argtypes = [ctypes.c_void_p]
     lib.skt_av_err.restype = ctypes.c_char_p
-    _bind_flac_pack(lib)
     _bind_encoders(lib)
-    _bind_aac(lib)
-    _bind_aac_batch(lib)
-    _bind_aac_compact(lib)
-    _bind_aac_compact_ptrs(lib)
-    _bind_aac_v3(lib)
-    _bind_mp3(lib)
-    _bind_gsm(lib)
-    _bind_alac(lib)
     return lib
 
 

@@ -387,8 +387,7 @@ uint64_t read_utf8_number(BitReader& br) {
 // diet: skt_flac_drain walks frames once at push time and
 // skt_flac_export_rounds scatters WHOLE collects into the device
 // wire in one call — the per-frame ctypes next() + per-(round, lane)
-// Python repack loop was ~0.5 s of a 3.5 s 1024-stream fleet pass,
-// docs/FLEET_PROFILE_r5.md)
+// Python repack loop it replaced was a large host stage of the fleet)
 struct QueuedExport {
     int kind = 0;  // 0 = segment wire, 1 = residual-plane fallback
     int32_t meta[12];

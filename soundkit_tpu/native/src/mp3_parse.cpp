@@ -574,8 +574,7 @@ int skt_mp3_pop_batch(void** handles, int B, int16_t* quant, int16_t* expq,
 // wire blocks of `stride` bytes (layout = ops/mp3_batch.
 // mp3_wire_layout — the field offsets are passed in so the layout
 // stays owned by the Python side).  One call replaces G per-round
-// skt_mp3_pop_batch calls + G fresh numpy wire allocations
-// (docs/FLEET_PROFILE_r5.md: 0.51 s of a 3.5 s 1024-stream pass).
+// skt_mp3_pop_batch calls + G fresh numpy wire allocations.
 // Lanes with fewer than G queued granules zero-fill the remaining
 // slots (valid=0, expq=-32768 silent lines).  rate[b] gets the
 // lane's last popped granule's sample rate (0 if none popped);

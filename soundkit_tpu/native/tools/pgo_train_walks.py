@@ -6,7 +6,7 @@ tables pushed from Python, so the Makefile runs THIS script against the
 -fprofile-generate instrumented library (``SKT_LIB_OVERRIDE`` points
 the loader at it, skipping the lazy rebuild) to collect branch counts
 for celt_parse.cpp / silk_parse.cpp / hybrid_glue.cpp — the mixed
-fleet's dominant host stage (docs/FLEET_PROFILE_r5.md).
+fleet's dominant host stage.
 
 Training content: libopus-encoded packets of a deterministic
 music+voice signal in all three modes (CELT music, SILK-WB voice,

@@ -7,9 +7,9 @@ inverse lattice (tns.rs), M/S + intensity
 (decoder.rs:253-319), pow-4/3 dequantization (dsp.rs:397-431).
 
 This module holds the numpy reference implementation used by the host
-single-stream path and as ground truth; the batched TPU path
+single-stream path and as ground truth; the batched device path
 (``ops.aac_batch``) reuses the same window/IMDCT matrices as jnp
-constants with matmul-based IMDCT (the MXU kernel of the north star).
+constants with matmul-based IMDCT.
 
 All math follows the ISO textbook definitions:
   IMDCT:  z[n] = (2/N) * sum_k X[k] cos(2*pi/N * (n + n0) * (k + 1/2)),

@@ -6,7 +6,7 @@ rate (:33-68), ``G726Core`` two-pole/six-zero predictor (:181-430),
 ``fmult``/``quan`` float-format arithmetic (:432-462), ``quantize``
 (:464-479) and ``reconstruct`` (:481-499).
 
-TPU-first recast: the per-sample update is inherently sequential, so
+Batched recast: the per-sample update is inherently sequential, so
 the parallel axis is *streams*.  All state lives in ``[B]``-shaped
 int32 arrays and one ``lax.scan`` step advances every stream by one
 sample with pure elementwise arithmetic (every branch becomes a

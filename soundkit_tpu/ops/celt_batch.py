@@ -1,13 +1,13 @@
-"""Batched TPU CELT synthesis: IMDCT + overlap-add + comb postfilter
+"""Batched device CELT synthesis: IMDCT + overlap-add + comb postfilter
 + de-emphasis for 20 ms Opus CELT frames.
 
 Device half of the Opus path (SURVEY §2.3 names the CELT path as
-batchable on TPU).  The host layer (codecs/opus_celt.py with
+batchable).  The host layer (codecs/opus_celt.py with
 ``parse_only=True``) runs the range decoder, allocation, PVQ and
 anti-collapse, and emits denormalized spectra; this module jits the
 synthesis over ``[B, C, 960]`` lanes:
 
-- long (960) and short (8x120) low-overlap IMDCTs as MXU matmuls,
+- long (960) and short (8x120) low-overlap IMDCTs as matmuls,
   selected per lane by the transient flag
 - overlap-add with a carried 120-sample lap per channel
 - the comb postfilter (old->current crossfade over the first 120
@@ -17,9 +17,9 @@ synthesis over ``[B, C, 960]`` lanes:
   land strictly before it — each step does two contiguous 12-wide
   gathers per lane (old/new period) instead of per-sample indexing,
   and the de-emphasis recurrence becomes a lower-triangular [8, 8]
-  matmul (120 scan steps instead of 960; ~10x on the TPU)
+  matmul (120 scan steps instead of 960)
 
-Matmul precision pinned to float32 (see aac_batch: the MXU's bf16
+Matmul precision pinned to float32 (see aac_batch: the GPU's TF32
 default would cap accuracy far below the oracle bars).
 Parity reference: the in-place comb/deemph chain of
 soundkit-opus's libopus backend (soundkit-opus/src/lib.rs).

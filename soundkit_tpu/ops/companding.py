@@ -3,8 +3,8 @@
 Behavioral equivalent of the reference's scalar segment-based
 companding (``soundkit-g711/src/lib.rs``: bias 0x84, clip 32635,
 ``SEGMENT_ENDS`` table at :5-14, encode/decode at :235-315), recast
-TPU-first: every sample is decoded/encoded with pure elementwise
-integer arithmetic (VPU lane ops) instead of per-sample branching or a
+for batching: every sample is decoded/encoded with pure elementwise
+integer arithmetic instead of per-sample branching or a
 table gather, so the op vectorizes over ``[streams, samples]`` batches
 and fuses into surrounding XLA computations.
 

@@ -8,7 +8,7 @@ high-band ADPCM decode, a shared two-pole/six-zero predictor update
 ("block4"), log step-size adaptation, and a 24-tap QMF synthesis
 producing 2 samples per byte.
 
-TPU-first recast: state is ``[B, 2, ...]`` int32 (both bands updated by
+Batched recast: state is ``[B, 2, ...]`` int32 (both bands updated by
 one vectorized block4), a ``lax.scan`` step advances every stream by
 one byte, and a validity mask freezes padded lanes (same pattern as
 ``soundkit_tpu.ops.adpcm``).

@@ -1,4 +1,4 @@
-"""Batched TPU MP3 granule decode.
+"""Batched device MP3 granule decode.
 
 North-star kernels (BASELINE.json: "nanomp3's IMDCT + polyphase
 synthesis filterbank" batched over streams): one jitted step decodes
@@ -119,9 +119,9 @@ def mp3_granule_device(quant, scale, ms, block_type, mixed, n_alias_sb,
     Returns (pcm [B, C, 576], new_overlap [B, C, 32, 18],
     new_v_fifo [B, C, 1024]).  jit me.
 
-    Matmul precision pinned to float32 (see aac_batch: the MXU's bf16
+    Matmul precision pinned to float32 (see aac_batch: the GPU's TF32
     default would cap IMDCT/polyphase accuracy well below the oracle
-    bars; the cost is invisible next to the host parse).
+    bars).
     """
     import jax
 

@@ -4,7 +4,7 @@ IMDCT, polyphase synthesis filterbank.
 These are the north-star device kernels (BASELINE.json: "nanomp3's
 IMDCT + polyphase synthesis filterbank" as batched kernels): the IMDCT
 is a [18 -> 36] matmul per subband and the synthesis filterbank is a
-[32 -> 64] matmul plus a windowed FIFO dot — both MXU-shaped.  This
+[32 -> 64] matmul plus a windowed FIFO dot — both matmul-shaped.  This
 module is the numpy reference; ``ops.mp3_batch`` runs the same
 matrices under jnp over ``[streams, ...]``.
 """

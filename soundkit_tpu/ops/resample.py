@@ -1,6 +1,6 @@
 """Windowed-sinc polyphase resampler.
 
-TPU-first equivalent of rubato 0.14 ``SincFixedIn`` as configured by
+Batched device equivalent of rubato 0.14 ``SincFixedIn`` as configured by
 the reference (sinc_len 256, f_cutoff 0.95, oversampling 256,
 BlackmanHarris2 window — ``soundkit/src/audio_pipeline.rs:188-194``,
 ``soundkit-decoder/src/lib.rs:109-123``).
@@ -10,7 +10,7 @@ Because the supported rate matrix is whitelisted rational ratios
 (L = out/gcd phases) instead of rubato's oversample-and-interpolate
 scheme: the L phase filters are sliced from one upsampled prototype,
 and the whole conversion lowers to ONE strided conv with L output
-channels — an im2col matmul on the MXU when batched over streams.
+channels — an im2col matmul when batched over streams.
 The reference itself only asserts output-length consistency between
 streaming and one-shot paths (soundkit-decoder/src/lib.rs:3084-3134);
 sample-level parity with rubato is approximate by construction and the
@@ -133,7 +133,7 @@ def resample(x, in_rate: int, out_rate: int):
     """Batched device resample. x: [streams, n] f32 -> [streams, n_out].
 
     Lowers to one ``conv_general_dilated`` (stride M, L output
-    channels) — an MXU matmul over im2col'd windows.  Jittable; shapes
+    channels) — a matmul over im2col'd windows.  Jittable; shapes
     static.
     """
     import jax.numpy as jnp
@@ -158,7 +158,7 @@ def resample(x, in_rate: int, out_rate: int):
         padding="VALID",
         dimension_numbers=("NCH", "OIH", "NCH"),
         preferred_element_type=jnp.float32,
-        precision=lax.Precision.HIGHEST,  # bf16 conv would degrade SNR
+        precision=lax.Precision.HIGHEST,  # a TF32 conv would degrade SNR
     )  # [B, L, n_c]
     out = out[:, :, :n_cycles]
     out = jnp.transpose(out, (0, 2, 1)).reshape(x.shape[0], n_cycles * L)
@@ -200,7 +200,7 @@ def resample_stateful(x, hist, in_rate: int, out_rate: int):
         xp, jnp.asarray(kern), window_strides=(M,), padding="VALID",
         dimension_numbers=("NCH", "OIH", "NCH"),
         preferred_element_type=jnp.float32,
-        precision=lax.Precision.HIGHEST,  # bf16 conv would degrade SNR
+        precision=lax.Precision.HIGHEST,  # a TF32 conv would degrade SNR
     )
     out = out[:, :, :n_cycles]
     out = jnp.transpose(out, (0, 2, 1)).reshape(x.shape[0], n_cycles * L)[:, :n_out]

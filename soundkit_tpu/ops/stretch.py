@@ -1,6 +1,6 @@
 """Phase-vocoder time stretch / pitch shift kernel.
 
-TPU-native replacement for the reference's Rubber Band C++ dependency
+Device-batched replacement for the reference's Rubber Band C++ dependency
 (soundkit-rubberband{,-sys}; SURVEY.md §2.3 rebuild plan: phase
 vocoder + windowed-sinc polyphase as owned kernels).  The algorithm is
 fully vectorized (no per-frame Python loop): STFT -> per-bin true

@@ -1,11 +1,11 @@
-"""Batched TPU Vorbis synthesis: IMDCT + window + overlap-add.
+"""Batched device Vorbis synthesis: IMDCT + window + overlap-add.
 
 Device half of the Vorbis path (north star names the Vorbis MDCT among
 the batched device kernels, SURVEY.md:18-24).  The host entropy layer
 (codecs/vorbis_core.py) emits per-packet spectra; this module jits the
 synthesis over ``[B, C, n1/2]`` lanes:
 
-- IMDCT as matmuls on the MXU for both block sizes, selected per lane
+- IMDCT as matmuls for both block sizes, selected per lane
 - Vorbis windows (long/short slope combinations from the per-packet
   prev/next window flags)
 - overlap-add with carried lap state; block-size transitions handled
@@ -74,7 +74,7 @@ def vorbis_synth_step(spec, n_flag, prev_flag, next_flag, valid, primed,
     Returns (out [B, C, n1//2], out_len [B], new_carry, new_carry_flag).
     out[:, :, :out_len[b]] are lane b's finished samples.
 
-    Matmul precision pinned to float32 (see aac_batch: the MXU's bf16
+    Matmul precision pinned to float32 (see aac_batch: the GPU's TF32
     default would cap IMDCT accuracy well below the oracle bars).
     """
     import jax

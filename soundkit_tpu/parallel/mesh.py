@@ -3,8 +3,8 @@
 The workload has no cross-stream communication (SURVEY.md §2.5): the
 only distributed axis is the stream batch.  We shard ``[streams, ...]``
 arrays over a 1-D mesh axis ``"streams"``; XLA inserts collectives only
-for metric reductions.  ICI carries the sharded batch; DCN is only for
-multi-host ingest.
+for metric reductions.  No serving path uses the mesh yet: it is
+exercised by step-level tests on virtual CPU devices.
 """
 from __future__ import annotations
 

@@ -1,125 +1,113 @@
-"""Minimal ctypes binding to libswresample for the SILK 8/12/16 kHz ->
-48 kHz conversion, configured exactly like the libavcodec opus
-decoder's resampler (filter_size 16, defaults otherwise, and the
-bandwidth-dependent zero preroll that compensates the FIR delay).
+"""SILK 8/12/16 kHz -> 48 kHz resampler, matched to the libavcodec opus
+decoder's libswresample setup (filter_size 16, defaults otherwise, and
+the bandwidth-dependent zero preroll that compensates the FIR delay).
 
-Only the resampling is delegated (commodity DSP — the reference
-delegates its resampling to the rubato crate the same way); the SILK
-codec math itself is owned (codecs/opus_silk.py).
+That stream map is linear and time-invariant after its first few
+outputs, so it is stored as a probed table
+(native/generated/silk_resampler.npz, written by
+``native/tools/gen_silk_resampler.py``): per-phase FIR taps, the
+output offset, the start-up correction and the output count.  This
+module evaluates the table in float64 and agrees with libswresample's
+float32 stream to ~1e-7.  Only the resampling follows the oracle (the
+reference delegates its resampling to the rubato crate the same way);
+the SILK codec math itself is owned (codecs/opus_silk.py).
 """
 from __future__ import annotations
 
-import ctypes
-import ctypes.util
+import functools
+from pathlib import Path
 
 import numpy as np
 
-_AV_SAMPLE_FMT_FLT = 3
-_LAYOUT_MONO = 4
-_LAYOUT_STEREO = 3
+#: libswresample's filter length at these ratios; a flush appends
+#: half of it, mirrored, to the buffered input
+_FILTER_LENGTH = 16
 
-# resampler group delay at the SILK rate, per bandwidth (NB/MB/WB),
-# matching the oracle's silk_resample_delay table
-SILK_RESAMPLE_DELAY = {0: 4, 1: 8, 2: 11}
+_TABLE = (Path(__file__).resolve().parent.parent / "native" / "generated"
+          / "silk_resampler.npz")
 
 
-class _Libs:
-    _cached = None
-
-    @classmethod
-    def get(cls):
-        if cls._cached is None:
-            swr = ctypes.CDLL("libswresample.so.4", mode=ctypes.RTLD_GLOBAL)
-            util = ctypes.CDLL("libavutil.so", mode=ctypes.RTLD_GLOBAL)
-            swr.swr_alloc.restype = ctypes.c_void_p
-            swr.swr_init.argtypes = [ctypes.c_void_p]
-            swr.swr_convert.restype = ctypes.c_int
-            swr.swr_convert.argtypes = [
-                ctypes.c_void_p,
-                ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-                ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-            ]
-            swr.swr_free.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
-            util.av_opt_set_int.argtypes = [
-                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
-                ctypes.c_int,
-            ]
-            cls._cached = (swr, util)
-        return cls._cached
+@functools.lru_cache(maxsize=3)
+def _table(bw: int):
+    t = np.load(_TABLE)
+    return (t[f"taps_{bw}"], int(t[f"off_{bw}"]), int(t[f"delay_{bw}"]),
+            t[f"corr_{bw}"])
 
 
 class SilkResampler:
-    """Streaming FLT resampler: push SILK-rate samples, get 48 kHz."""
+    """Streaming resampler: push SILK-rate samples, get 48 kHz f32."""
 
     def __init__(self, in_rate: int, bandwidth: int, channels: int = 1):
-        swr, util = _Libs.get()
-        self._swr = swr
-        self._ctx = ctypes.c_void_p(swr.swr_alloc())
-        if not self._ctx:
-            raise RuntimeError("swr_alloc failed")
-        layout = _LAYOUT_MONO if channels == 1 else _LAYOUT_STEREO
-        for name, val in (
-            (b"in_sample_fmt", _AV_SAMPLE_FMT_FLT),
-            (b"out_sample_fmt", _AV_SAMPLE_FMT_FLT),
-            (b"in_channel_layout", layout),
-            (b"out_channel_layout", layout),
-            (b"out_sample_rate", 48000),
-            (b"filter_size", 16),
-            (b"in_sample_rate", in_rate),
-        ):
-            util.av_opt_set_int(self._ctx, name, val, 0)
-        if swr.swr_init(self._ctx) != 0:
-            raise RuntimeError("swr_init failed")
+        self._taps, self._off, self._delay, self._corr = _table(bandwidth)
+        self._R = 48000 // in_rate
+        if self._R != self._taps.shape[0]:
+            raise ValueError(f"rate {in_rate} does not match bandwidth "
+                             f"{bandwidth}")
         self.channels = channels
-        # zero preroll to compensate the FIR group delay
-        delay = SILK_RESAMPLE_DELAY[bandwidth]
-        silence = np.zeros(delay * channels, dtype=np.float32)
-        self._convert(silence, delay, 0)
+        # inputs from global index ``_base`` on (the table already holds
+        # the zero preroll's effect on the stream), the first inputs
+        # for the start-up correction, and the input count
+        self._x = np.zeros((0, channels))
+        self._base = 0
+        self._head = np.zeros((0, channels))
+        self._n = 0
+        self._emitted = 0
 
-    def _convert(self, data: np.ndarray, n_in: int, n_out: int
-                 ) -> np.ndarray:
-        out = np.zeros(max(n_out, 1) * self.channels, dtype=np.float32)
-        inptr = (ctypes.c_void_p * 1)(
-            ctypes.cast(
-                data.ctypes.data_as(ctypes.c_void_p), ctypes.c_void_p
-            )
-            if n_in else None
-        )
-        outptr = (ctypes.c_void_p * 1)(
-            ctypes.cast(out.ctypes.data_as(ctypes.c_void_p),
-                        ctypes.c_void_p)
-        )
-        got = self._swr.swr_convert(self._ctx, outptr, n_out,
-                                    inptr if n_in else None, n_in)
-        if got < 0:
-            raise RuntimeError("swr_convert failed")
-        return out[: got * self.channels]
+    def _outputs(self, m0: int, m1: int) -> np.ndarray:
+        """Stream outputs y[m0:m1] from the inputs buffered so far."""
+        taps, off, R = self._taps, self._off, self._R
+        J = taps.shape[1]
+        m = np.arange(m0, m1)
+        n = (m - off) // R
+        p = (m - off) % R
+        k = n[:, None] - np.arange(J)[None, :]            # [M, J]
+        ok = (k >= 0) & (k < self._n)
+        kx = np.clip(k - self._base, 0, max(self._x.shape[0] - 1, 0))
+        xk = self._x[kx] if self._x.shape[0] else np.zeros(
+            k.shape + (self.channels,))                    # [M, J, C]
+        y = np.einsum("mj,mjc->mc", np.where(ok, taps[p], 0.0), xk)
+        rows = self._corr.shape[0]
+        if m0 < rows:
+            head = self._head
+            y[: rows - m0] += (self._corr[m0:min(m1, rows), : head.shape[0]]
+                               @ head)
+        return y.astype(np.float32)
+
+    def _append(self, x: np.ndarray) -> None:
+        k0 = self._corr.shape[1]
+        if self._head.shape[0] < k0:
+            self._head = np.concatenate([self._head, x])[:k0]
+        self._x = np.concatenate([self._x, x])
+        self._n += x.shape[0]
+
+    def _take(self, out_samples: int) -> np.ndarray:
+        avail = self._R * self._n - self._delay
+        n = max(0, min(out_samples, avail - self._emitted))
+        y = self._outputs(self._emitted, self._emitted + n)
+        self._emitted += n
+        # keep only the inputs the next output can still reach
+        keep = max((self._emitted - self._off) // self._R
+                   - self._taps.shape[1], 0)
+        if keep > self._base:
+            self._x = self._x[keep - self._base:]
+            self._base = keep
+        return y
 
     def process(self, pcm: np.ndarray, out_samples: int) -> np.ndarray:
         """pcm: [n, ch] float at the SILK rate; returns [m, ch] f32 at
         48 kHz with m <= out_samples (the oracle requests exactly the
         packet duration per superframe; the first NB frame comes up 24
         samples short of it — the oracle's delayed_samples)."""
-        flat = np.ascontiguousarray(
-            pcm.astype(np.float32).reshape(-1)
-        )
-        out = self._convert(flat, pcm.shape[0], out_samples)
-        return out.reshape(-1, self.channels)
+        x = np.asarray(pcm, np.float32).astype(np.float64)
+        self._append(x.reshape(-1, self.channels))
+        return self._take(out_samples)
 
     def drain(self, out_samples: int) -> np.ndarray:
-        """Flush up to ``out_samples`` buffered samples (NULL-input
-        convert), the oracle's opus_flush_resample on a bandwidth
-        switch."""
+        """Flush up to ``out_samples`` buffered samples, the oracle's
+        opus_flush_resample on a bandwidth switch: libswresample pads
+        the input with a mirror of its last samples, then emits."""
         if out_samples <= 0:
             return np.zeros((0, self.channels), dtype=np.float32)
-        out = self._convert(
-            np.zeros(0, dtype=np.float32), 0, out_samples)
-        return out.reshape(-1, self.channels)
-
-    def __del__(self):
-        try:
-            if getattr(self, "_ctx", None):
-                self._swr.swr_free(ctypes.byref(self._ctx))
-                self._ctx = None
-        except Exception:
-            pass
+        reflect = (min(self._n, _FILTER_LENGTH) + 1) // 2
+        self._append(self._x[self._x.shape[0] - reflect:][::-1])
+        return self._take(out_samples)

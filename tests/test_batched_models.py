@@ -324,11 +324,11 @@ def test_celt_synth_sharded_8dev(testdata):
 
 
 def test_no_recompilation_steady_state(testdata):
-    """TPU analog of the reference's zero-allocation steady-state test
+    """Device analog of the reference's zero-allocation steady-state test
     (soundkit-aac-lc/tests/no_alloc_decode.rs): after the first batch
     compiles, every further lockstep batch must hit the jit cache.  A
-    retrace in the serving loop is the TPU equivalent of a per-frame
-    allocation regression (20-40 s stall on a real chip)."""
+    retrace in the serving loop is the device equivalent of a
+    per-frame allocation regression (a recompile stall)."""
     import logging
 
     import jax

@@ -101,22 +101,10 @@ def test_batched_pack_matches_python_writer(bits):
         (amp * 0.7 * np.sin(t * 0.004 + 0.2)).astype(np.int64),
     ])
     m_native = BatchedFlacEncoder(2, 48000, 2, bits)
-    m_py = BatchedFlacEncoder(2, 48000, 2, bits)
+    m_py = BatchedFlacEncoder(2, 48000, 2, bits, use_native=False)
     for m in (m_native, m_py):
         m.push(0, sig)
         m.push(1, sig[:, : 2 * n] // 3)
-    m_native.encode_pending()
-
-    # force the python fallback path on the second model
-    def _no_native(*a, **k):
-        raise RuntimeError("forced fallback")
-
-    import soundkit_tpu.native.loader as loader
-    orig = loader.load
-    loader.load = _no_native
-    try:
-        m_py.encode_pending()
-    finally:
-        loader.load = orig
+        m.encode_pending()
     for lane in range(2):
         assert m_native.finish(lane) == m_py.finish(lane), f"lane {lane}"

@@ -1,8 +1,8 @@
 """Device SILK synthesis (ops/silk_batch.py) + serving model.
 
-The round-4 split of the SILK voice path: native parse-export
+The split of the SILK voice path: native parse-export
 (silk_parse.cpp skt_silk_parse_many) + jitted batched LTP/LPC
-synthesis, stereo unmix, and probed-FIR 48 kHz resample.  In f64 the
+synthesis, stereo unmix, and table-FIR 48 kHz resample.  In f64 the
 device path matches the host engine (native synthesis + libswresample)
 to the host resampler's own float32 arithmetic noise (~1.5e-7); the
 f32 serving path holds >95 dB per lane.
@@ -152,7 +152,7 @@ def test_device_silk_matches_host_engine_fixture_wb():
                                        (2, True)])
 def test_device_silk_kernel_f64_matches_oracle(bw, stereo):
     """f64 device kernel vs per-stream oracle: equal to the host
-    resampler's own f32 arithmetic noise, including NB's probed
+    resampler's own f32 arithmetic noise, including NB's
     time-varying stream start (silk_batch.first_slot_correction)."""
     import jax
     import jax.numpy as jnp
